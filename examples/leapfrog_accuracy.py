@@ -2,9 +2,9 @@
 
 The reference integrates with damped semi-implicit Euler
 (/root/reference/nuclear_forces.py:156-171) — first-order accurate. The
-TPU build adds ``SimConfig.integrator="leapfrog"`` (velocity-Verlet,
-second order) on every backend: the jnp oracle, fused inside the Mosaic
-kernel as two sweeps per step, and the ppermute ring.
+rebuild adds ``SimConfig.integrator="leapfrog"`` (velocity-Verlet,
+second order) on every backend: the jnp oracle, the fused GPU kernel (as
+two sweeps per step), and the ppermute ring.
 
 This script shows two textbook properties on an undamped three-nucleon
 configuration:

@@ -1,9 +1,10 @@
 """Sharded C-14 survival statistics on a device mesh.
 
-Demonstrates the multi-chip workflow end to end: on a machine with real
-TPUs the mesh spans them; ``--platform cpu`` runs the identical code on 8
-virtual CPU devices anywhere. The same code scales to a pod by calling
-``initialize_multihost()`` first (the ``data`` axis then lays across DCN).
+Demonstrates the multi-device workflow end to end: on a machine with
+several GPUs the mesh spans them; ``--platform cpu`` runs the identical
+code on 8 virtual CPU devices anywhere. The same code scales across hosts
+by calling ``initialize_multihost()`` first (the ``data`` axis then lays
+across the hosts).
 
   * ``ensemble_init`` (pool placement) -> ``shard_ensemble`` over a 1-D
     ``data`` mesh,
@@ -27,7 +28,7 @@ os.environ["XLA_FLAGS"] = (
 
 parser = argparse.ArgumentParser(description=__doc__)
 parser.add_argument(
-    "--platform", choices=("cpu", "tpu"), default=None,
+    "--platform", choices=("cpu", "cuda"), default=None,
     help="force the JAX platform BEFORE any op (cpu = the 8-virtual-device "
     "demo mesh; default: whatever devices the machine has)",
 )
@@ -61,7 +62,7 @@ HL = 5730 * 31557600.0  # C-14 (decay_chains.py:37)
 
 
 def main():
-    initialize_multihost()  # no-op on one host; DCN init on a pod
+    initialize_multihost()  # no-op on one host; distributed init across hosts
     mesh = make_mesh()  # 1-D 'data' axis over every device
     n_dev = mesh.devices.size
 

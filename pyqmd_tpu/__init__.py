@@ -1,4 +1,5 @@
-"""pyqmd_tpu — a TPU-native nuclear structure and radioactive decay engine.
+"""pyqmd_tpu — an accelerator-native nuclear structure and radioactive decay
+engine, run on NVIDIA GPUs.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of OtsoBear/PyQMD
 (reference at /root/reference): an O(N^2) pairwise nucleon force model
@@ -7,7 +8,7 @@ containment), tabulated + predicted decay chains (alpha/beta-/beta+/gamma/
 n/p/fission) driven by half-life statistics, ejecta animation, a headless
 framebuffer renderer, and an interactive terminal app.
 
-Design (TPU-first, not a translation):
+Design (accelerator-first, not a translation):
   * one immutable SoA ``NucleusState`` pytree with fixed max-A padding and
     alive masks (vs. the reference's Python ``Particle`` object lists),
   * one pure jit-compiled ``step`` with substeps inside ``lax.scan`` (vs.
@@ -15,10 +16,11 @@ Design (TPU-first, not a translation):
     nuclear_forces.py:202-234),
   * counter-based ``jax.random`` decay sampling inside the step (vs.
     Python ``random.random()``, particles.py:147),
-  * ensembles as a vmapped batch dimension sharded over an ICI mesh with
-    ``shard_map`` and ``psum``-aggregated decay statistics,
-  * a fused Pallas force+integrate kernel as the native-code equivalent of
-    the reference's embedded OpenCL kernel (nuclear_forces.py:57-173).
+  * ensembles as a vmapped batch dimension sharded over a device mesh
+    with ``shard_map`` and ``psum``-aggregated decay statistics,
+  * a fused Pallas (Triton route) force+integrate kernel as the
+    native-code equivalent of the reference's embedded OpenCL kernel
+    (nuclear_forces.py:57-173).
 """
 
 from pyqmd_tpu.config import SimConfig

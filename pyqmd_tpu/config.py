@@ -5,7 +5,7 @@ nuclear_forces.py:13-17, physics_dt / max_substeps at nuclear_sim.py:59-66,
 kernel constants at nuclear_forces.py:58, 82-83). Here they live in one
 frozen dataclass that is passed as a *static* jit argument, so XLA bakes
 them into the compiled program and changing them triggers a recompile —
-the idiomatic TPU equivalent of a compile-time constant.
+the idiomatic JAX equivalent of a compile-time constant.
 """
 
 from __future__ import annotations
@@ -47,26 +47,12 @@ class SimConfig:
     accuracy: float = 1.0  # effective dt = physics_dt * (2 - accuracy)
     physics_dt_factor: float = 0.8  # auto-adjust scale (nuclear_sim.py:66)
 
-    # Force backend: "jnp" (XLA-fused broadcast, always available) or
-    # "pallas" (the fused Mosaic kernel — the native-code equivalent of the
-    # reference's embedded OpenCL kernel, nuclear_forces.py:57-173).
+    # Force backend: "jnp" (XLA's fusion of the broadcast pair chain, any
+    # device) or "pallas" (the fused Triton-route kernel in
+    # kernels/forces_pallas.py, NVIDIA GPUs only; the native-code
+    # equivalent of the reference's embedded OpenCL kernel,
+    # nuclear_forces.py:57-173).
     force_backend: str = "jnp"
-
-    # Decay backend for the statistics-only batched frame: "pallas" runs
-    # the fused Mosaic decay kernel (kernels/decay_pallas.py); "auto"/
-    # "jnp" use the XLA masked-update path, which MEASURES equal-or-faster
-    # at every batch size (see core/step.py decay_ensemble_step — the
-    # kernel is kept as an opt-in reference point; results identical up to
-    # transcendental ULP in the chain-time record, test-pinned).
-    decay_backend: str = "auto"
-
-    # Relaxed-precision transcendentals in the Pallas kernel (approximate
-    # reciprocals) — the analog of the reference's -cl-fast-relaxed-math
-    # build flag (nuclear_forces.py:175), which is also ITS default. ~11%
-    # faster, measured max deviation ~7e-6 vs the exact jnp oracle (well
-    # inside the kernel-equivalence test tolerance). Set False for
-    # bit-conservative runs.
-    fast_math: bool = True
 
     # Force strengths (nuclear_forces.py:13-15). gravity/weak are declared
     # in the reference but never used (nuclear_forces.py:16-17) — omitted.
@@ -94,8 +80,7 @@ class SimConfig:
     # Integrator: "euler" reproduces the reference's semi-implicit Euler
     # (nuclear_forces.py:156-171); "leapfrog" is the flagged
     # velocity-Verlet upgrade (SURVEY §7 step 2) — second-order accurate,
-    # two force evaluations per step, on either backend (the Pallas kernel
-    # runs kick-drift-kick as two fused sweeps since r4).
+    # two force evaluations per step, on either backend.
     integrator: str = "euler"
 
     # Overlap resolution (nuclear_sim.py:355-379).
@@ -122,8 +107,6 @@ class SimConfig:
             )
         if self.force_backend not in ("jnp", "pallas"):
             raise ValueError(f"unknown force backend {self.force_backend!r}")
-        if self.decay_backend not in ("auto", "jnp", "pallas"):
-            raise ValueError(f"unknown decay backend {self.decay_backend!r}")
         if self.integrator not in ("euler", "leapfrog"):
             raise ValueError(f"unknown integrator {self.integrator!r}")
         if not self.physics_dt > 0.0:
@@ -147,7 +130,7 @@ class SimConfig:
     @classmethod
     def for_isotope(cls, z: int, n: int, *, pad_to: int = 8, **kw) -> "SimConfig":
         """Config sized for one isotope, padding capacity to a multiple of
-        ``pad_to`` (use 128 for the Pallas kernel path)."""
+        ``pad_to``."""
         cap = max(pad_to, _round_up(z + n, pad_to))
         return cls(z=z, n=n, max_particles=cap, **kw)
 

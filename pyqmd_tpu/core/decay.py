@@ -110,11 +110,9 @@ def _first_rank_masks(state: NucleusState):
 
 # --- packed nucleon bitfields (decay-only statistics path) -----------------
 #
-# The rank-mask adjustment above runs ~P lanes of (B, P) work per substep;
-# with P padded onto the 128-wide lane axis that is mostly wasted lanes
-# (measured +1.7 ns/nucleus-substep of the 2M C-14 decay-only budget, r5).
-# The stats frame instead carries (alive, is-proton) as ceil(P/32) uint32
-# words per nucleus — slot j lives in word j//32 bit j%32, so "the first
+# The rank-mask adjustment above runs ~P lanes of (B, P) work per substep,
+# most of them on padding at small P. The stats frame instead carries
+# (alive, is-proton) as ceil(P/32) uint32 words per nucleus — slot j lives in word j//32 bit j%32, so "the first
 # rm alive protons" is a lowest-set-bits extraction: dense (B, W) ops on
 # the batch axis. Removal counts are at most 2 (_REMOVE_P/_REMOVE_N), so
 # two x & (-x) rounds per word suffice. Pack/unpack happens once per
@@ -237,9 +235,8 @@ def _apply_decay_from_draws(
 
     All of a substep's randomness comes in as ONE ``(4 + 2·k_e,)`` uniform
     vector — a single threefry block — instead of the 2 key splits + 7
-    separate draws of the original formulation. At batch=1 the decay path
-    is RNG-latency-bound, so this is the difference between ~77 and ~47 µs
-    per substep (docs/PERFORMANCE.md).
+    separate draws of the original formulation, since at batch=1 the decay
+    path is bound by the latency of its random draws.
 
     ``stats_only`` (the decay-only statistics frame) skips the ejecta-ring
     writes and the decay velocity damping — 2·k_e·6 masked whole-(E,)
@@ -254,10 +251,10 @@ def _apply_decay_from_draws(
     u_ftype = u[4 : 4 + k_e]
     u_ang = u[4 + k_e : 4 + 2 * k_e]
 
-    # Table access form (bitwise-identical results, different lowering —
-    # measured on TPU): batched frames win with ONE packed-row gather per
-    # cell (828k vs 794k nucleus-substeps/s at 10k); the single-nucleus
-    # path wins with flat scalar takes (52.6 vs 57.7 µs/substep).
+    # Table access form (bitwise-identical results, different lowering):
+    # batched frames use ONE packed-row gather per cell, the single-nucleus
+    # path flat scalar takes. Which form is faster on the GPU is a
+    # hypothesis, not measured here (ROADMAP D8).
     if row_tables:
         new_z, new_n, dtype = tables.sample_branch_from_row(
             tables.lookup_row(state.z, state.n), u_branch
@@ -281,8 +278,7 @@ def _apply_decay_from_draws(
     duration = jnp.where((measured < 0.001) | (hl < 0.001), synth, measured)
 
     # Chain-ring write as an elementwise masked update instead of a scatter:
-    # dynamic-index scatters break XLA fusion and were a measurable share of
-    # the ensemble substep (docs/PERFORMANCE.md r3 notes).
+    # dynamic-index scatters break XLA fusion.
     slot = state.chain_cursor % cfg.max_chain_log
     slot_mask = (jnp.arange(cfg.max_chain_log) == slot) & eff
 
@@ -364,7 +360,7 @@ def _apply_decay_from_draws(
         # Ejecta-ring write, also scatter-free: ring slot s receives
         # fragment k iff (s - cursor) mod E == k. k_e is a small static
         # constant, so the update unrolls to k_e whole-(E,) masked selects
-        # — no gather, no scatter, pure elementwise VPU work.
+        # — no gather, no scatter, pure elementwise work.
         e_cap = cfg.max_ejecta
         rel = (jnp.arange(e_cap) - state.ej_cursor) % e_cap
 
@@ -464,9 +460,7 @@ def maybe_decay_from_u(
 ):
     """:func:`maybe_decay` over a pre-drawn ``(1 + draw_count,)`` uniform
     vector — the seam for callers that source the substep's threefry block
-    elsewhere. (Hoisting a whole frame's draws out of the substep scan was
-    measured SLOWER than in-scan draws — see the note in core/step.py —
-    so the batched frames do NOT use this.)"""
+    elsewhere. The batched frames draw inside the substep scan instead.)"""
     p = decay_probability(state.half_life, dyn.step_time)
     did = u[0] < p
     return _apply_decay_from_draws(

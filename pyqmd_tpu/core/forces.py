@@ -17,9 +17,9 @@ The architecture is not a translation: instead of one OpenCL work-item per
 particle with host<->device marshaling every substep
 (nuclear_forces.py:190-234), the whole pair interaction is a masked (P, P)
 broadcast that XLA fuses into one program, state stays device-resident, and
-an ensemble is a leading vmap axis. A fused Pallas kernel with the same
+an ensemble is a leading vmap axis. A fused GPU kernel with the same
 semantics lives in :mod:`pyqmd_tpu.kernels.forces_pallas`; this jnp version
-is the always-available fallback and the equivalence oracle.
+runs on any device and is the equivalence oracle.
 
 One deliberate semantic note: the reference kernel reads ``particles[j]``
 while work-item j may already have written its slot — a tolerated data race
@@ -130,9 +130,8 @@ def chunk_plan(b: int, max_chunk: int):
     Pick the fewest chunks that respect ``max_chunk``, then size them
     evenly so the all-dead pad is at most ``chunk - 1`` rows. A prime
     batch (e.g. B=8209) still runs as 2 chunks (not B sequential
-    dispatches), while a 10240 batch runs as 2x5120 with zero pad — the
-    round-4 scheme padded it to 2x8192 (60% wasted rows, a measured ~34%
-    throughput regression at b=10240). Shared by :func:`force_step` and
+    dispatches), while a 10240 batch runs as 2x5120 with zero pad rather
+    than 2x8192 (60% wasted rows). Shared by :func:`force_step` and
     ``core.step._batched_overlap``.
     """
     n_chunks = -(-b // max_chunk)
@@ -151,8 +150,8 @@ def force_step(pos, vel, ptype, alive, dt, cfg: SimConfig, *, max_chunk=8192):
         f = jax.vmap(lambda p, v, t, a: force_step(p, v, t, a, dt, cfg))
         b = pos.shape[0]
         # Chunk very large batches with lax.map: the vmapped pairwise chain
-        # materializes (B, P, P) intermediates in HBM (the Pallas backend
-        # does not have this problem — it keeps pair blocks in VMEM).
+        # may materialize (B, P, P) intermediates in device memory (the
+        # kernel backend keeps its pair tiles in registers).
         if b <= max_chunk:
             return f(pos, vel, ptype, alive)
         n_chunks, chunk, pad = chunk_plan(b, max_chunk)

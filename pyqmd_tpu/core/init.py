@@ -7,7 +7,7 @@ capacities [2, 8, 20, 28, 50, 82, 126] inside radius
 remainders, each placement choosing the best of 20 random angles by
 maximizing the minimum distance to already-placed same-type nucleons.
 
-TPU-first departures: the placement *order* (which shell, which type, per
+Accelerator-first departures: the placement *order* (which shell, which type, per
 particle index) is a pure function of (Z, N) computed once on host as a
 static array; the sequential best-of-20 search runs as a ``lax.fori_loop``
 whose candidate scoring is a vectorized (20, P) distance computation — and

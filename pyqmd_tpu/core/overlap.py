@@ -5,18 +5,15 @@ Gauss-Seidel sweep on the host every frame
 (/root/reference/nuclear_sim.py:355-379): each pair closer than 5.0 is
 pushed apart by half the overlap, degenerate pairs get a random direction.
 
-TPU-first reformulation: a Jacobi projection — all pair pushes are computed
+Reformulated for an accelerator: a Jacobi projection — all pair pushes are computed
 against the *same* snapshot and summed per particle, so the pass is one
 masked (P, P) broadcast instead of a data-dependent sequential loop. One
 Jacobi iteration resolves typical frame-to-frame overlap as effectively as
 the reference's single sweep (both are approximate projections repeated
 every frame); ``cfg.overlap_iterations`` allows more.
 
-Two backends with the same math: this jnp oracle (any shape, any device)
-and the Pallas kernel (:mod:`pyqmd_tpu.kernels.overlap_pallas`, VMEM pair
-blocks, batch-tiled) selected via ``cfg.force_backend`` when the particle
-capacity is lane-aligned — the overlap pass was ~20% of a 10k-ensemble
-frame on the jnp path (docs/PERFORMANCE.md).
+The pass runs once per frame, against up to 20 force sweeps, as plain
+jnp that XLA fuses (batched and chunked in ``core.step._batched_overlap``).
 
 Randomness: degenerate (coincident) pairs separate along the angle
 ``u_i + u_j`` from a (P,)-sized uniform draw (+pi on the j<i side so the
@@ -76,22 +73,11 @@ def _resolve_once(pos, alive, u, cfg: SimConfig):
     return pos + jnp.where(alive[:, None], delta, 0.0)
 
 
-def _use_pallas(cfg: SimConfig) -> bool:
-    # Any capacity works since r4: small nuclei pack G per 128-lane row,
-    # others pad (kernels/forces_pallas._packing).
-    return cfg.force_backend == "pallas"
-
-
 def resolve_overlaps(pos, alive, key, cfg: SimConfig):
     """Run ``cfg.overlap_iterations`` Jacobi projection passes on one
-    nucleus (``pos`` (P, 2)); backend follows ``cfg.force_backend``."""
+    nucleus (``pos`` (P, 2))."""
     p = pos.shape[-2]
     for i in range(cfg.overlap_iterations):
         u = _rand_u(jax.random.fold_in(key, i), p)
-        if _use_pallas(cfg):
-            from pyqmd_tpu.kernels.overlap_pallas import overlap_step_pallas
-
-            pos = overlap_step_pallas(pos, alive, u, cfg)
-        else:
-            pos = _resolve_once(pos, alive, u, cfg)
+        pos = _resolve_once(pos, alive, u, cfg)
     return pos

@@ -1,6 +1,6 @@
 """The simulation step: substeps under ``lax.scan`` inside one jit.
 
-This is the TPU-native equivalent of the reference's frame update
+This is the accelerator-resident equivalent of the reference's frame update
 (/root/reference/nuclear_sim.py:118-176), which per substep (up to 20 per
 frame) runs a host loop over ejecta, a host-side decay Bernoulli, and a
 full host<->device round trip for the force kernel
@@ -23,13 +23,6 @@ from pyqmd_tpu.core.decay import maybe_decay
 from pyqmd_tpu.core.dynamics import FrameDynamics
 from pyqmd_tpu.core.overlap import resolve_overlaps
 from pyqmd_tpu.state import ALPHA, NucleusState
-
-# Negative result (r4, measured): hoisting the whole frame's decay draws
-# out of the substep scan into one (S, B, draws) threefry launch is
-# SLOWER than the in-scan per-substep draw (He-4 pallas b10240: 493 vs
-# 354 us/substep, interleaved A/B) — the upfront hash bulk-serializes
-# where the small in-scan draws overlap with the force kernel. Keep the
-# per-substep draw.
 
 
 def select_force_step(cfg: SimConfig):
@@ -198,27 +191,13 @@ def state_metrics(state: NucleusState) -> dict:
 def _batched_overlap(pos, alive, keys, cfg: SimConfig, max_chunk: int = 1024):
     """Overlap resolution over a batch.
 
-    On the Pallas backend the kernel is called batch-native (pair blocks
-    live in VMEM, so no chunking is needed); the per-member key folding
-    and angle draws match the single-nucleus path exactly, keeping
-    ``ensemble_step`` bitwise-equal to ``vmap(simulate_frame)``.
-
-    On the jnp path a plain vmap materializes ~10 (B, P, P) temporaries —
-    17 GB each at a 64k ensemble — so batches beyond ``max_chunk`` are
-    processed in sequential ``lax.map`` chunks (the pass is a small share
-    of a frame's work; latency is immaterial).
+    A plain vmap materializes ~10 (B, P, P) temporaries — 17 GB each at a
+    64k ensemble — so batches beyond ``max_chunk`` are processed in
+    sequential ``lax.map`` chunks (the pass is a small share of a frame's
+    work; latency is immaterial). Per-member key folding and angle draws
+    match the single-nucleus path exactly, keeping ``ensemble_step``
+    bitwise-equal to ``vmap(simulate_frame)``.
     """
-    from pyqmd_tpu.core.overlap import _rand_u, _use_pallas
-
-    p = pos.shape[-2]
-    if _use_pallas(cfg):
-        from pyqmd_tpu.kernels.overlap_pallas import overlap_step_pallas
-
-        for i in range(cfg.overlap_iterations):
-            u = jax.vmap(lambda k: _rand_u(jax.random.fold_in(k, i), p))(keys)
-            pos = overlap_step_pallas(pos, alive, u, cfg)
-        return pos
-
     f = jax.vmap(lambda p, a, k: resolve_overlaps(p, a, k, cfg))
     b = pos.shape[0]
     if b <= max_chunk:
@@ -304,9 +283,9 @@ def ensemble_step(
 
     Not simply ``vmap(simulate_frame)``: the per-nucleus parts (ejecta,
     decay, overlap) are vmapped, but the force step is called *batch-native*
-    so the Pallas kernel sees the whole (B, P) ensemble and tiles it onto
-    its grid — under vmap each nucleus would be padded to a full batch tile
-    (8x wasted work). Per-nucleus PRNG key derivation matches
+    so the kernel sees the whole (B, P) ensemble and groups small nuclei
+    into its programs — under vmap each nucleus would be a call of its
+    own. Per-nucleus PRNG key derivation matches
     :func:`simulate_frame` exactly, so results are bitwise-identical to the
     vmapped form for a given force backend.
 
@@ -377,7 +356,7 @@ def decay_ensemble_step(
     # The stats-only decay path never reads or writes the ejecta ring, so
     # the (B, E) ejecta leaves ride OUTSIDE the scan carry entirely (None
     # is an empty pytree subtree): zero per-substep HBM traffic for them.
-    # Since r5, positions, velocities and the (post-scan-replaced) rng
+    # Positions, velocities and the (post-scan-replaced) rng
     # leaf ride outside too: with ``stats_only`` the decay transition
     # neither reads nor writes them (apply_decay computes no CoM and skips
     # the velocity damping), and at pad_to=8 the (B, P, 2) pos/vel pair
@@ -389,95 +368,64 @@ def decay_ensemble_step(
     ej_saved = {f: getattr(states, f) for f in ej_fields}
     states = states.replace(**{f: None for f in ej_fields})
 
-    # The fused Mosaic decay kernel collapses the ~30 per-substep XLA
-    # fusions of the masked-update path into one program (+ the threefry
-    # draw and three nuclear-data row gathers, which stay in XLA);
-    # decisions are identical (integer trajectories exact, chain times to
-    # transcendental ULP — tests/test_kernel.py pins it). The scan carries
-    # the kernel's BATCH-MINOR (transposed) field views — nuclei on lanes
-    # — so the one transpose each way happens outside the substep loop.
-    #
-    # Measured verdict (r4, interleaved A/B on TPU): the kernel does NOT
-    # beat XLA's fusion of the masked-update path — 2M C-14: 55-67M vs
-    # 68-80M nucleus-substeps/s (it pays a third table-row gather and
-    # wholesale block traffic); 32k: a wash (93-97M vs 94-105M). "auto"
-    # therefore resolves to jnp; the kernel stays as an opt-in backend
-    # (decay_backend="pallas") and a pinned-equivalent reference point.
-    use_kernel = cfg.decay_backend == "pallas"
-    if use_kernel:
-        from pyqmd_tpu.kernels.decay_pallas import (
-            decay_stats_substep_t,
-            transpose_state_for_decay,
-            untranspose_decay_fields,
+    # Narrow the integer carry leaves at the scan boundary: the scan's
+    # HBM traffic is the carry width, and Z < 128, N < 192, particle
+    # types < 6 and decay types < 8 all fit uint8. The casts happen
+    # INSIDE the substep body, where XLA fuses them into the update —
+    # the compute still runs in int32,
+    # so trajectories stay bitwise identical; only the
+    # between-substep representation narrows (~424 → ~138 B/nucleus
+    # at pad_to=8 with the pos/vel/rng exclusion above).
+    # decay_counts stays int32: per-nucleus counts are UNBOUNDED on
+    # self-looping chains (Tc-99m's γ branch re-enters (43,56) per
+    # the reference data, PARITY departure 8) and a uint16 carry
+    # would silently wrap at 65535 events on long statistics runs.
+    narrow_to = {
+        "z": jnp.uint8, "n": jnp.uint8,
+        "chain_z0": jnp.uint8, "chain_n0": jnp.uint8,
+        "chain_dtype": jnp.uint8, "chain_z1": jnp.uint8,
+        "chain_n1": jnp.uint8,
+    }
+    wide_dtypes = {f: getattr(states, f).dtype for f in narrow_to}
+
+    def cast(st, dtypes):
+        return st.replace(
+            **{f: getattr(st, f).astype(d) for f, d in dtypes.items()}
         )
 
-        fields = transpose_state_for_decay(states)
+    # alive/ptype ride the scan as packed uint32 bitfields: the
+    # (B, P) rank-mask adjustment is mostly padding at pad_to=8; the
+    # bitfield form is a few dense (B, W) word ops with bitwise-identical results
+    # (core/decay.py pack_nucleon_bits).
+    from pyqmd_tpu.core.decay import pack_nucleon_bits, unpack_alive_ptype
 
-        def body_t(fl, keys):
-            return decay_stats_substep_t(fl, cfg, keys, dyn), None
+    p_cap = states.alive.shape[-1]
+    bits0 = pack_nucleon_bits(states.alive, states.ptype)
+    states = states.replace(alive=None, ptype=None)
 
-        fields, _ = jax.lax.scan(body_t, fields, step_keys)
-        states = untranspose_decay_fields(states, fields)
-    else:
-        # Narrow the integer carry leaves at the scan boundary (r5,
-        # VERDICT item 5): the scan's HBM traffic is the carry width, and
-        # Z < 128, N < 192, particle types < 6 and decay types < 8 all
-        # fit uint8. The casts happen INSIDE the substep body, where XLA
-        # fuses them into the update — the compute still runs in int32,
-        # so trajectories stay bitwise identical; only the
-        # between-substep representation narrows (~424 → ~138 B/nucleus
-        # at pad_to=8 with the pos/vel/rng exclusion above).
-        # decay_counts stays int32: per-nucleus counts are UNBOUNDED on
-        # self-looping chains (Tc-99m's γ branch re-enters (43,56) per
-        # the reference data, PARITY departure 8) and a uint16 carry
-        # would silently wrap at 65535 events on long statistics runs.
-        narrow_to = {
-            "z": jnp.uint8, "n": jnp.uint8,
-            "chain_z0": jnp.uint8, "chain_n0": jnp.uint8,
-            "chain_dtype": jnp.uint8, "chain_z1": jnp.uint8,
-            "chain_n1": jnp.uint8,
-        }
-        wide_dtypes = {f: getattr(states, f).dtype for f in narrow_to}
-
-        def cast(st, dtypes):
-            return st.replace(
-                **{f: getattr(st, f).astype(d) for f, d in dtypes.items()}
-            )
-
-        # alive/ptype ride the scan as packed uint32 bitfields: the
-        # (B, P) rank-mask adjustment was +1.7 ns/nucleus-substep of
-        # mostly-wasted lanes at pad_to=8; the bitfield form is a few
-        # dense (B, W) word ops with bitwise-identical results
-        # (core/decay.py pack_nucleon_bits).
-        from pyqmd_tpu.core.decay import pack_nucleon_bits, unpack_alive_ptype
-
-        p_cap = states.alive.shape[-1]
-        bits0 = pack_nucleon_bits(states.alive, states.ptype)
-        states = states.replace(alive=None, ptype=None)
-
-        def body(carry, keys):
-            # st's ejecta/pos/vel/rng/alive/ptype leaves are None (empty
-            # subtrees): the stats-only decay path reads none of them.
-            st, bits = carry
-            st = cast(st, wide_dtypes)
-            st, bits = jax.vmap(
-                lambda s, a, pb, k: (
-                    lambda r: (r[0], r[2])
-                )(
-                    maybe_decay(
-                        s, cfg, k, dyn, row_tables=True, stats_only=True,
-                        packed_nucleons=(a, pb),
-                    )
+    def body(carry, keys):
+        # st's ejecta/pos/vel/rng/alive/ptype leaves are None (empty
+        # subtrees): the stats-only decay path reads none of them.
+        st, bits = carry
+        st = cast(st, wide_dtypes)
+        st, bits = jax.vmap(
+            lambda s, a, pb, k: (
+                lambda r: (r[0], r[2])
+            )(
+                maybe_decay(
+                    s, cfg, k, dyn, row_tables=True, stats_only=True,
+                    packed_nucleons=(a, pb),
                 )
-            )(st, bits[0], bits[1], keys)
-            return (cast(st, narrow_to), bits), None
+            )
+        )(st, bits[0], bits[1], keys)
+        return (cast(st, narrow_to), bits), None
 
-        (states, bits), _ = jax.lax.scan(
-            body, (cast(states, narrow_to), bits0), step_keys
-        )
-        states = cast(states, wide_dtypes)
-        alive, ptype = unpack_alive_ptype(bits[0], bits[1], p_cap)
-        states = states.replace(alive=alive, ptype=ptype)
+    (states, bits), _ = jax.lax.scan(
+        body, (cast(states, narrow_to), bits0), step_keys
+    )
+    states = cast(states, wide_dtypes)
+    alive, ptype = unpack_alive_ptype(bits[0], bits[1], p_cap)
+    states = states.replace(alive=alive, ptype=ptype)
     states = states.replace(**ej_saved)
     states = states.replace(
         rng=jax.vmap(lambda k: jax.random.key_data(k).astype(jnp.uint32))(k3[:, 2]),

@@ -2,7 +2,7 @@
 
 The reference consults Python dicts from host code on every decay event
 (HALF_LIVES at decay_chains.py:257-262, DECAY_CHAINS at :208-229, with the
-predictor mutating the chain dict as a cache at :169-201). On TPU a decay
+predictor mutating the chain dict as a cache at :169-201). Here a decay
 happens *inside* the compiled step, so all of that becomes table gathers:
 this module densifies the half-life DB, the branch DB (tabulated entries
 plus the N/Z-ratio predictor applied to every other grid cell), and the
@@ -78,8 +78,8 @@ _T = _build()
 # decay event costs TWO row gathers (parent cell for the branch data,
 # daughter cell for the half-life) instead of nine flat-table gathers —
 # each gather is its own fusion, and at batch=1 the decay path is
-# fusion-latency-bound (docs/PERFORMANCE.md item 7b). Integer fields ride
-# as exact f32 (all values << 2^24); rows pad to 16 lanes.
+# bound by fusion latency. Integer fields ride as exact f32 (all values
+# << 2^24); rows pad to 16 columns.
 # Layout: 0 hl_tab, 1 est_lo, 2 est_span, 3 est_scale, 4 est_stable,
 #         5 br_p0, 6-8 br_z0/br_n0/br_t0, 9-11 br_z1/br_n1/br_t1.
 _ROWS = np.zeros((_CELLS, 16), np.float32)

@@ -1,4 +1,4 @@
-"""Native TPU kernels (Pallas/Mosaic)."""
+"""Native GPU kernels (Pallas, Triton route)."""
 
 from pyqmd_tpu.kernels.forces_pallas import force_step_pallas
 

@@ -1,40 +1,31 @@
-"""Fused Pallas force + integrate kernel (Mosaic / TPU).
+"""Fused force + integrate kernel for NVIDIA GPUs (Pallas, Triton route).
 
-This is the native-code equivalent of the reference's single native
-component: the embedded OpenCL kernel ``update_forces_and_positions``
-(/root/reference/nuclear_forces.py:57-173). Same physics as
-:func:`pyqmd_tpu.core.forces.force_step` (the jnp oracle) — hard core,
-piecewise strong force, p-p Coulomb, same-type Pauli, per-pair clamp, CoM
-spring, semi-implicit Euler with 0.85 damping (or the velocity-Verlet
-upgrade, matching ``core.forces._leapfrog_step``) — but with the TPU-first
-execution shape:
+The native-code counterpart of the reference's embedded OpenCL kernel
+``update_forces_and_positions`` (/root/reference/nuclear_forces.py:57-173)
+and a drop-in replacement for :func:`pyqmd_tpu.core.forces.force_step`
+(the jnp oracle). The pair chain is the oracle's own
+:func:`~pyqmd_tpu.core.forces.pair_net_force`, so both backends share one
+statement of the physics.
 
-  * grid over batch tiles (8-128 rows per program, sized to the batch —
-    see TILE_B_CAP), the ensemble being the scale axis (SURVEY §2 P2:
-    kernel tiling);
-  * all state for a tile resident in VMEM; the (P, P) pair interaction is
-    computed per row with VPU elementwise ops and accumulated with a
-    negated sublane-axis reduction (g symmetric, dx antisymmetric), never
-    spilling pair matrices to HBM;
-  * **small nuclei are packed**: when the particle capacity P is below the
-    128-lane width, G = 128 // P nuclei share one lane row; the pair sweep
-    materializes group-local partners with lane rolls (sub-1 elementwise
-    passes, no pair matrix) and tall batch tiles amortize DMA latency —
-    so an He-4 ensemble fills all 128 lanes with 16 nuclei per row
-    instead of wasting 120 of them (or falling back to jnp, the r3
-    restriction);
-  * any capacity is accepted: P is padded up to the next divisor or
-    multiple of 128 with dead slots — there is no alignment restriction
-    on the caller;
-  * center of mass and alive counts computed in-kernel (the reference
-    computes the center on host each substep, nuclear_forces.py:206-208);
-  * integration fused into the same kernel — one HBM read + one HBM write
-    of the state per substep, the speed-of-light minimum. The leapfrog
-    integrator runs two fused force evaluations (kick-drift-kick) in the
-    same tile residency.
+Execution shape:
 
-Equivalence with the jnp path is pinned by tests/test_kernel.py in
-interpret mode and on real TPU (bench.py kernel_max_abs_diff).
+  * each program owns whole nuclei: one for a heavy nucleus (U-238 at a
+    capacity of 256), a power-of-two group of small ones (He-4 at 8,
+    C-14 at 16), so every program has a few thousand pair lanes of work;
+  * the program loops over blocks of partners, keeping the
+    (nuclei x rows x partners) tile in registers and only the per-row
+    force sums across iterations — no pair array ever reaches device
+    memory;
+  * alive count and center of mass are reduced in-kernel, and the
+    integrate step is fused, so a substep reads and writes the state once.
+
+Leapfrog (velocity-Verlet) runs as two calls, kick-drift then kick: the
+second force sweep needs every row's drifted position, which on the GPU
+is a grid-wide dependency.
+
+Equivalence with the jnp path is pinned by tests/test_kernel.py with the
+kernel in interpret mode on the CPU, and at full width on the card by
+chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -44,451 +35,171 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from pyqmd_tpu.config import SimConfig
+from pyqmd_tpu.core.forces import pair_net_force
 from pyqmd_tpu.state import PROTON
 
-TILE_B = 8  # minimum rows per program: the f32 (8, 128) sublane tile
-# Batch-tile height caps. The device shows BIMODAL grid-step execution
-# (docs/PERFORMANCE.md "tile height and the two device modes"): in its
-# overlapped mode, wall time scales with GRID STEPS and tall tiles are
-# huge wins (U-238 b10240 ms/substep measured 8/16/32/64/128 =
-# 11.54/6.05/3.31/1.94/1.19); in its serialized mode, time scales with
-# ROWS and tall tiles cost a few % extra (same sweep re-measured:
-# 11.5/11.5/11.5/12.9/12.3). The DEFAULT caps are the never-worse point
-# across both modes — 32 for the row-unrolled kernels, 64 for the
-# row-vectorized packed kernel — but since r5 the live caps come from
-# kernels/device_mode.py, whose fenced startup probe detects the mode
-# and raises both caps to 128 when the device is overlapped.
-TILE_B_CAP = 32
-TILE_B_CAP_PACKED = 64
-LANES = 128
+# Elements of one (nuclei x rows x partners) tile. Sets the partner block
+# and the nuclei per program (see block_layout). Chosen by a sweep on an
+# H100 (PERF.md): small tiles keep the pair chain's ~20 live values per
+# element in registers.
+TILE_ELEMS = 256
+NUM_WARPS = 2
 
 
-def _tile_rows(rows: int, cap: int = TILE_B_CAP) -> int:
-    """Largest power-of-two tile height <= min(cap, next_pow2(rows))."""
-    t = TILE_B
-    while t < cap and t < rows:
-        t *= 2
-    return t
+def block_layout(p: int, batch: int, tile_elems: int = TILE_ELEMS):
+    """``(padded capacity, partner block, nuclei per program)`` for
+    capacity ``p`` and ``batch`` nuclei.
 
-
-def _pair_force(dist, dist2, pp, same, cfg: SimConfig, recip):
-    """Clamped net pair-force magnitude — the full reference pair chain
-    (nuclear_forces.py:100-137), elementwise on any shape. ``pp``/``same``
-    are float indicators."""
-    s = cfg.strong_strength
-    eps = cfg.epsilon
-    min_allowed = cfg.nucleon_radius * cfg.hard_core_scale
-
-    overlap = jnp.maximum(min_allowed - dist, 0.0) / min_allowed
-    f = -cfg.hard_core_strength * overlap * jnp.sqrt(overlap)  # x**1.5
-
-    # Single-exp piecewise strong force (same trick as the jnp oracle).
-    inv_d2e = recip(dist2 + eps)
-    inv_de = recip(dist + eps)
-    r_ratio = dist / cfg.strong_range
-    in_attract = dist < cfg.strong_attract_cut
-    amp = jnp.where(in_attract, 1.25 * s, 0.15 * s)
-    k = jnp.where(in_attract, 1.0, 1.8)
-    outer = amp * jnp.exp(-r_ratio * k) * inv_de
-    core = -0.7 * s * inv_d2e
-    f = f + jnp.where(dist < cfg.strong_core_cut, core, outer)
-
-    f = f - pp * (cfg.coulomb_strength * inv_d2e)
-
-    pauli = cfg.pauli_strength * jnp.exp(-dist / cfg.pauli_range * 2.0)
-    f = f - jnp.where(dist < cfg.pauli_range, same * pauli, 0.0)
-
-    return jnp.clip(f, -cfg.max_pair_force, cfg.max_pair_force)
-
-
-def _recip_fn(cfg: SimConfig):
-    if cfg.fast_math:
-        # -cl-fast-relaxed-math analog (nuclear_forces.py:175).
-        return lambda x: pl.reciprocal(x, approx=True)
-    return lambda x: 1.0 / x
-    # Note: a polynomial exp2 replacement was measured SLOWER than the
-    # hardware exp (733 vs 587 ms/frame at 10k) — the VPU transcendental
-    # unit beats a ~10-op software pipeline; keep jnp.exp.
-
-
-def _force_kernel_packed(
-    dt_ref,  # (1, 1) SMEM
-    px_ref, py_ref, vx_ref, vy_ref,  # (TILE_B, 128) VMEM f32
-    isp_ref, m_ref,  # (TILE_B, 128) VMEM f32
-    ox_ref, oy_ref, ovx_ref, ovy_ref,  # outputs (TILE_B, 128)
-    *,
-    cfg: SimConfig,
-    group: int,
-):
-    """Packed small-nucleus kernel: ``group`` nuclei of ``sub = 128//group``
-    slots share each 128-lane row.
-
-    Instead of a (128, 128) block-diagonal pair matrix (6.25% lane
-    utilization at sub=8 — measured 528 µs/substep for He-4 b10240), the
-    partner at *group-local offset d* is materialized for every lane at
-    once with two lane-rolls + a select, so the pair sweep is ``sub - 1``
-    elementwise passes over the whole (TILE_B, 128) tile and the
-    per-group center-of-mass sums accumulate in the same loop. ~16x less
-    arithmetic, no cross-lane reductions at all.
+    Triton blocks are powers of two, so the capacity pads up to one with
+    dead slots. The partner block fills the tile for a single nucleus; the
+    rest of the tile goes to more nuclei, but never more than the batch
+    holds (a single nucleus is not padded to a group).
     """
-    dt = dt_ref[0, 0]
-    sub = LANES // group
-    recip = _recip_fn(cfg)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (px_ref.shape[0], LANES), 1)
-    slot = lane % sub  # group-local index of each lane
-
-    def eval_force(x, y, m, isp):
-        """Pair sweep + per-group CoM spring, masked by alive. All
-        operands (TILE_B, 128)."""
-        fx = jnp.zeros_like(x)
-        fy = jnp.zeros_like(x)
-        cnt = m
-        sx = x * m
-        sy = y * m
-        for d in range(1, sub):
-            # Partner of lane i at offset d inside its group:
-            # j = group_base + (slot + d) % sub. Lanes with slot + d < sub
-            # read the full-vector roll by -d, the wrap-around lanes the
-            # roll by sub - d.
-            wrap = slot >= (sub - d)
-
-            def partner(v):
-                a = pltpu.roll(v, LANES - d, 1)  # roll left by d
-                b = pltpu.roll(v, sub - d, 1)  # roll right by sub - d
-                return jnp.where(wrap, b, a)
-
-            jx = partner(x)
-            jy = partner(y)
-            jm = partner(m)
-            jisp = partner(isp)
-
-            dx = jx - x
-            dy = jy - y
-            dist2 = dx * dx + dy * dy
-            pair = (m * jm) * (dist2 >= 0.01).astype(jnp.float32)
-            inv_dist = jax.lax.rsqrt(jnp.maximum(dist2, 1e-12))
-            dist = dist2 * inv_dist
-
-            f = _pair_force(
-                dist, dist2, isp * jisp, 1.0 - jnp.abs(isp - jisp), cfg, recip
-            )
-            g = pair * f * inv_dist
-            fx = fx + g * dx
-            fy = fy + g * dy
-            # Per-group CoM sums ride the same partner pass.
-            cnt = cnt + jm
-            sx = sx + jx * jm
-            sy = sy + jy * jm
-
-        safe = jnp.maximum(cnt, 1.0)
-        cx = sx / safe
-        cy = sy / safe
-        # Cube root via exp/log (safe >= 1): Mosaic has no powf lowering.
-        nuclear_radius = 1.2 * jnp.exp(jnp.log(safe) / 3.0) * 2.0
-
-        # CoM containment spring (nuclear_forces.py:144-154).
-        cdx = cx - x
-        cdy = cy - y
-        cdist = jnp.sqrt(cdx * cdx + cdy * cdy)
-        active = ((cdist > nuclear_radius * 1.5) & (cdist > 0.01)).astype(
-            jnp.float32
-        )
-        mag = cfg.com_spring * (cdist - nuclear_radius)
-        scale = active * mag / jnp.maximum(cdist, 1e-9)
-        return (fx + scale * cdx) * m, (fy + scale * cdy) * m
-
-    x = px_ref[...]
-    y = py_ref[...]
-    vx = vx_ref[...]
-    vy = vy_ref[...]
-    m = m_ref[...]
-    isp = isp_ref[...]
-
-    if cfg.integrator == "leapfrog":
-        # Velocity-Verlet (kick-drift-kick), two fused partner sweeps.
-        f1x, f1y = eval_force(x, y, m, isp)
-        vhx = vx + f1x * (0.5 * dt)
-        vhy = vy + f1y * (0.5 * dt)
-        x2 = x + vhx * dt
-        y2 = y + vhy * dt
-        f2x, f2y = eval_force(x2, y2, m, isp)
-        nvx = (vhx + f2x * (0.5 * dt)) * cfg.damping
-        nvy = (vhy + f2y * (0.5 * dt)) * cfg.damping
-        ovx_ref[...] = jnp.where(m > 0, nvx, vx)
-        ovy_ref[...] = jnp.where(m > 0, nvy, vy)
-        ox_ref[...] = jnp.where(m > 0, x2, x)
-        oy_ref[...] = jnp.where(m > 0, y2, y)
-    else:
-        # Fused semi-implicit Euler + damping (nuclear_forces.py:156-171).
-        fx, fy = eval_force(x, y, m, isp)
-        nvx = (vx + fx * dt) * cfg.damping
-        nvy = (vy + fy * dt) * cfg.damping
-        ovx_ref[...] = jnp.where(m > 0, nvx, vx)
-        ovy_ref[...] = jnp.where(m > 0, nvy, vy)
-        ox_ref[...] = jnp.where(m > 0, x + nvx * dt, x)
-        oy_ref[...] = jnp.where(m > 0, y + nvy * dt, y)
+    p2 = pl.next_power_of_2(p)
+    block_j = max(1, min(p2, tile_elems // p2))
+    group = max(1, tile_elems // (p2 * block_j))
+    group = min(group, pl.next_power_of_2(batch))
+    return p2, block_j, group
 
 
 def _force_kernel(
-    dt_ref,  # (1, 1) SMEM
-    px_ref, py_ref, vx_ref, vy_ref,  # (TILE_B, P) VMEM f32
-    isp_ref, m_ref,  # (TILE_B, P) VMEM f32: proton indicator, alive mask
-    ox_ref, oy_ref, ovx_ref, ovy_ref,  # outputs (TILE_B, P)
+    dt_ref,  # () f32
+    x_ref, y_ref, vx_ref, vy_ref,  # (G, P) f32
+    isp_ref, m_ref,  # (G, P) f32: proton indicator, alive mask
+    ox_ref, oy_ref, ovx_ref, ovy_ref,  # outputs (G, P)
     *,
     cfg: SimConfig,
+    block_j: int,
+    kick: float,
+    damp: bool,
+    drift: bool,
 ):
-    """One nucleus per lane row; the row spans P//128 pair tiles."""
-    dt = dt_ref[0, 0]
-    eps = cfg.epsilon
-    s = cfg.strong_strength
-    min_allowed = cfg.nucleon_radius * cfg.hard_core_scale
-    recip = _recip_fn(cfg)
+    """One force sweep and the update
+    ``v' = (v + F·kick·dt)·damping?``, ``x' = x + v'·dt`` (if ``drift``),
+    applied to alive slots only."""
+    dt = dt_ref[...]
+    x = x_ref[...]
+    y = y_ref[...]
+    m = m_ref[...]
+    isp = isp_ref[...]
+    alive = m > 0
 
-    p = px_ref.shape[1]
-    t_sz = LANES  # pair-tile edge (lane width)
-    ntiles = p // t_sz
-    eye = jnp.eye(t_sz, dtype=jnp.float32)
-    diag_pair_mask = 1.0 - eye
-
-    def pair_block(xi, yi, mi, ispi, xj, yj, mj, ispj, diagonal):
-        """g*dx, g*dy for one (128, 128) tile pair: rows = i-tile,
-        cols = j-tile. The full reference pair chain (nuclear_forces.py:100-137)."""
-        dx = xj[None, :] - xi[:, None]
-        dy = yj[None, :] - yi[:, None]
+    def partner_block(jb, carry):
+        fx, fy = carry
+        cols = pl.ds(jb * block_j, block_j)
+        xj = x_ref[:, cols]
+        yj = y_ref[:, cols]
+        mj = m_ref[:, cols]
+        ispj = isp_ref[:, cols]
+        # d[g, i, j] = pos_j - pos_i, as in core.forces.pair_forces_block.
+        dx = xj[:, None, :] - x[:, :, None]
+        dy = yj[:, None, :] - y[:, :, None]
         dist2 = dx * dx + dy * dy
-        pair = (mi[:, None] * mj[None, :]) * (dist2 >= 0.01).astype(jnp.float32)
-        if diagonal:
-            # Self-pair exclusion; for packed rows also cross-nucleus
-            # exclusion (the block-diagonal group mask).
-            pair = pair * diag_pair_mask
-        # One rsqrt yields both dist and 1/dist (saves the g = f/dist divide).
-        inv_dist = jax.lax.rsqrt(jnp.maximum(dist2, 1e-12))
-        dist = dist2 * inv_dist
+        pair = (m[:, :, None] * mj[:, None, :] > 0) & (dist2 >= 0.01)
+        dist = jnp.sqrt(jnp.maximum(dist2, 1e-12))
+        is_pp = isp[:, :, None] * ispj[:, None, :] > 0
+        is_same = isp[:, :, None] == ispj[:, None, :]
+        net = pair_net_force(dist, dist2, is_pp, is_same, cfg)
+        g = jnp.where(pair, net / dist, 0.0)
+        return fx + jnp.sum(g * dx, axis=2), fy + jnp.sum(g * dy, axis=2)
 
-        overlap = jnp.maximum(min_allowed - dist, 0.0) / min_allowed
-        f = -cfg.hard_core_strength * overlap * jnp.sqrt(overlap)  # x**1.5
+    zeros = jnp.zeros(x.shape, jnp.float32)
+    fx, fy = jax.lax.fori_loop(
+        0, x.shape[1] // block_j, partner_block, (zeros, zeros)
+    )
 
-        # Single-exp piecewise strong force (same trick as the jnp oracle).
-        inv_d2e = recip(dist2 + eps)
-        inv_de = recip(dist + eps)
-        r_ratio = dist / cfg.strong_range
-        in_attract = dist < cfg.strong_attract_cut
-        amp = jnp.where(in_attract, 1.25 * s, 0.15 * s)
-        k = jnp.where(in_attract, 1.0, 1.8)
-        outer = amp * jnp.exp(-r_ratio * k) * inv_de
-        core = -0.7 * s * inv_d2e
-        f = f + jnp.where(dist < cfg.strong_core_cut, core, outer)
+    # Center-of-mass containment spring (core.forces.com_force).
+    safe = jnp.maximum(jnp.sum(m, axis=1), 1.0)[:, None]
+    cdx = jnp.sum(x * m, axis=1)[:, None] / safe - x
+    cdy = jnp.sum(y * m, axis=1)[:, None] / safe - y
+    cdist = jnp.sqrt(cdx * cdx + cdy * cdy)
+    radius = 1.2 * safe ** (1.0 / 3.0) * 2.0
+    active = (cdist > radius * 1.5) & (cdist > 0.01)
+    scale = jnp.where(
+        active & alive,
+        cfg.com_spring * (cdist - radius) / jnp.maximum(cdist, 1e-9),
+        0.0,
+    )
+    fx = fx + cdx * scale
+    fy = fy + cdy * scale
 
-        f = f - (ispi[:, None] * ispj[None, :]) * (cfg.coulomb_strength * inv_d2e)
-
-        same = 1.0 - jnp.abs(ispi[:, None] - ispj[None, :])
-        pauli = cfg.pauli_strength * jnp.exp(-dist / cfg.pauli_range * 2.0)
-        f = f - jnp.where(dist < cfg.pauli_range, same * pauli, 0.0)
-
-        f = jnp.clip(f, -cfg.max_pair_force, cfg.max_pair_force)
-        g = pair * f * inv_dist
-        return g * dx, g * dy
-
-    for b in range(px_ref.shape[0]):  # static unroll over the batch tile
-        m = m_ref[b, :]
-        isp = isp_ref[b, :]
-        ms = [m[t * t_sz:(t + 1) * t_sz] for t in range(ntiles)]
-        isps = [isp[t * t_sz:(t + 1) * t_sz] for t in range(ntiles)]
-
-        # Alive count (per nucleus) — position-independent, computed once.
-        count = jnp.sum(m)
-        safe = jnp.maximum(count, 1.0)
-        # Cube root via exp/log (safe >= 1): Mosaic has no powf lowering.
-        nuclear_radius = 1.2 * jnp.exp(jnp.log(safe) / 3.0) * 2.0
-
-        def eval_force(xs, ys):
-            """Total per-particle force (pair sweep + CoM spring, masked by
-            alive) for the row at positions xs/ys (lists of per-tile
-            vectors). The CoM is recomputed from xs/ys — matching
-            compute_forces, which leapfrog calls at two positions."""
-            # Center of mass of the current positions.
-            cx = sum(jnp.sum(xs[t] * ms[t]) for t in range(ntiles)) / safe
-            cy = sum(jnp.sum(ys[t] * ms[t]) for t in range(ntiles)) / safe
-
-            # Block-antisymmetric pair sweep: the pair force magnitude is
-            # symmetric and the offsets antisymmetric, so the lower-triangle
-            # tile blocks are the exact negated transposes of the upper ones —
-            # only ntiles*(ntiles+1)/2 of ntiles^2 blocks are computed (25%
-            # saved at P=256). Diagonal blocks reduce along sublanes (fast);
-            # each off-diagonal block pays one cross-lane reduction for its
-            # i-tile rows and reuses the sublane reduction for the j-tile.
-            fx_t = [jnp.zeros((t_sz,), jnp.float32) for _ in range(ntiles)]
-            fy_t = [jnp.zeros((t_sz,), jnp.float32) for _ in range(ntiles)]
-            for ti in range(ntiles):
-                for tj in range(ti, ntiles):
-                    mx, my = pair_block(
-                        xs[ti], ys[ti], ms[ti], isps[ti],
-                        xs[tj], ys[tj], ms[tj], isps[tj],
-                        diagonal=(ti == tj),
-                    )
-                    if ti == tj:
-                        fx_t[ti] = fx_t[ti] - jnp.sum(mx, axis=0)
-                        fy_t[ti] = fy_t[ti] - jnp.sum(my, axis=0)
-                    else:
-                        fx_t[ti] = fx_t[ti] + jnp.sum(mx, axis=1)
-                        fy_t[ti] = fy_t[ti] + jnp.sum(my, axis=1)
-                        fx_t[tj] = fx_t[tj] - jnp.sum(mx, axis=0)
-                        fy_t[tj] = fy_t[tj] - jnp.sum(my, axis=0)
-
-            # CoM containment spring (nuclear_forces.py:144-154), masked by
-            # the alive mask (compute_forces applies * m to the spring).
-            for t in range(ntiles):
-                cdx = cx - xs[t]
-                cdy = cy - ys[t]
-                cdist = jnp.sqrt(cdx * cdx + cdy * cdy)
-                active = ((cdist > nuclear_radius * 1.5) & (cdist > 0.01)).astype(
-                    jnp.float32
-                )
-                mag = cfg.com_spring * (cdist - nuclear_radius)
-                scale = active * mag / jnp.maximum(cdist, 1e-9)
-                fx_t[t] = (fx_t[t] + scale * cdx) * ms[t]
-                fy_t[t] = (fy_t[t] + scale * cdy) * ms[t]
-            return fx_t, fy_t
-
-        xs = [px_ref[b, t * t_sz:(t + 1) * t_sz] for t in range(ntiles)]
-        ys = [py_ref[b, t * t_sz:(t + 1) * t_sz] for t in range(ntiles)]
-        vxs = [vx_ref[b, t * t_sz:(t + 1) * t_sz] for t in range(ntiles)]
-        vys = [vy_ref[b, t * t_sz:(t + 1) * t_sz] for t in range(ntiles)]
-
-        if cfg.integrator == "leapfrog":
-            # Velocity-Verlet (kick-drift-kick), two fused force sweeps —
-            # core.forces._leapfrog_step semantics, same tile residency.
-            f1x, f1y = eval_force(xs, ys)
-            vhx = [vxs[t] + f1x[t] * (0.5 * dt) for t in range(ntiles)]
-            vhy = [vys[t] + f1y[t] * (0.5 * dt) for t in range(ntiles)]
-            x2 = [xs[t] + vhx[t] * dt for t in range(ntiles)]
-            y2 = [ys[t] + vhy[t] * dt for t in range(ntiles)]
-            f2x, f2y = eval_force(x2, y2)
-            for t in range(ntiles):
-                sl = slice(t * t_sz, (t + 1) * t_sz)
-                mt = ms[t]
-                nvx = (vhx[t] + f2x[t] * (0.5 * dt)) * cfg.damping
-                nvy = (vhy[t] + f2y[t] * (0.5 * dt)) * cfg.damping
-                ovx_ref[b, sl] = jnp.where(mt > 0, nvx, vxs[t])
-                ovy_ref[b, sl] = jnp.where(mt > 0, nvy, vys[t])
-                ox_ref[b, sl] = jnp.where(mt > 0, x2[t], xs[t])
-                oy_ref[b, sl] = jnp.where(mt > 0, y2[t], ys[t])
-        else:
-            # Fused semi-implicit Euler + damping (nuclear_forces.py:156-171).
-            fx_t, fy_t = eval_force(xs, ys)
-            for t in range(ntiles):
-                sl = slice(t * t_sz, (t + 1) * t_sz)
-                mt = ms[t]
-                vx = (vxs[t] + fx_t[t] * dt) * cfg.damping
-                vy = (vys[t] + fy_t[t] * dt) * cfg.damping
-                ovx_ref[b, sl] = jnp.where(mt > 0, vx, vxs[t])
-                ovy_ref[b, sl] = jnp.where(mt > 0, vy, vys[t])
-                ox_ref[b, sl] = jnp.where(mt > 0, xs[t] + vx * dt, xs[t])
-                oy_ref[b, sl] = jnp.where(mt > 0, ys[t] + vy * dt, ys[t])
-
-
-def _packing(p: int) -> tuple[int, int]:
-    """(padded capacity P', nuclei per lane row G) for particle capacity p.
-
-    P' is the next divisor of 128 at or above p (small nuclei: G = 128//P'
-    share a row) or the next multiple of 128 (large nuclei: G = 1, the row
-    spans P'//128 tiles). Dead-slot padding makes both exact.
-    """
-    if p >= LANES:
-        return ((p + LANES - 1) // LANES) * LANES, 1
-    sub = 1
-    while sub < p:
-        sub *= 2
-    return sub, LANES // sub
-
-
-@functools.partial(
-    jax.jit, static_argnames=("cfg", "interpret", "tile_cap")
-)
-def _force_step_batched(
-    pos, vel, ptype, alive, dt, cfg: SimConfig, interpret=False, tile_cap=None
-):
-    """Fused kernel over a batch: pos/vel (B, P, 2), ptype/alive (B, P).
-
-    Any P is accepted: capacities below 128 lanes are packed G nuclei per
-    row (G = 128 // next_pow2(P)); capacities above are padded to a lane
-    multiple. The r3 ``P % 128 == 0`` restriction is gone.
-
-    ``tile_cap`` overrides the batch-tile row cap (the device-mode probe
-    uses it to time specific tile heights); None = the live caps from
-    kernels/device_mode.py.
-    """
-    b, p = ptype.shape
-    p_sub, group = _packing(p)
-
-    pad_p = p_sub - p
-    if pad_p:
-        pos = jnp.pad(pos, ((0, 0), (0, pad_p), (0, 0)))
-        vel = jnp.pad(vel, ((0, 0), (0, pad_p), (0, 0)))
-        ptype = jnp.pad(ptype, ((0, 0), (0, pad_p)))
-        alive = jnp.pad(alive, ((0, 0), (0, pad_p)))
-
-    # Pack G nuclei per 128-lane row (C-order reshape keeps each nucleus's
-    # slots contiguous, matching the kernel's static group mask).
-    if tile_cap is None:
-        from pyqmd_tpu.kernels.device_mode import current_caps
-
-        cap_unrolled, cap_packed = current_caps()
-        tile_cap = cap_packed if group > 1 else cap_unrolled
-    tile_b = _tile_rows(-(-b // group), tile_cap)
-    row_quota = group * tile_b  # nuclei consumed per grid program
-    pad_b = (-b) % row_quota
-    if pad_b:
-        pos = jnp.pad(pos, ((0, pad_b), (0, 0), (0, 0)))
-        vel = jnp.pad(vel, ((0, pad_b), (0, 0), (0, 0)))
-        ptype = jnp.pad(ptype, ((0, pad_b), (0, 0)))
-        alive = jnp.pad(alive, ((0, pad_b), (0, 0)))
-    bb = b + pad_b
-    rows = bb // group
-    row_p = p_sub * group  # lane width of one row (= 128 when packed)
-
-    px = pos[..., 0].reshape(rows, row_p)
-    py = pos[..., 1].reshape(rows, row_p)
-    vx = vel[..., 0].reshape(rows, row_p)
-    vy = vel[..., 1].reshape(rows, row_p)
-    isp = ((ptype == PROTON) & alive).astype(jnp.float32).reshape(rows, row_p)
-    m = alive.astype(jnp.float32).reshape(rows, row_p)
-    dt_arr = jnp.asarray(dt, jnp.float32).reshape(1, 1)
-
-    grid = (rows // tile_b,)
-    vspec = pl.BlockSpec((tile_b, row_p), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    sspec = pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM)
-    out_shape = [jax.ShapeDtypeStruct((rows, row_p), jnp.float32)] * 4
-
-    sweeps = 2 if cfg.integrator == "leapfrog" else 1
-    if group > 1:
-        kernel = functools.partial(_force_kernel_packed, cfg=cfg, group=group)
-        pair_lanes = row_p * (p_sub - 1)  # rolled-partner passes
+    vx = vx_ref[...]
+    vy = vy_ref[...]
+    nvx = vx + fx * (kick * dt)
+    nvy = vy + fy * (kick * dt)
+    if damp:
+        nvx = nvx * cfg.damping
+        nvy = nvy * cfg.damping
+    ovx_ref[...] = jnp.where(alive, nvx, vx)
+    ovy_ref[...] = jnp.where(alive, nvy, vy)
+    if drift:
+        ox_ref[...] = jnp.where(alive, x + nvx * dt, x)
+        oy_ref[...] = jnp.where(alive, y + nvy * dt, y)
     else:
-        kernel = functools.partial(_force_kernel, cfg=cfg)
-        pair_lanes = row_p * row_p
-    flops_per = 2 * pair_lanes * 40 * sweeps  # ~40 ops per pair interaction
-    ox, oy, ovx, ovy = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[sspec] + [vspec] * 6,
-        out_specs=[vspec] * 4,
-        out_shape=out_shape,
-        interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=flops_per * tile_b,
-            bytes_accessed=10 * tile_b * row_p * 4,
-            transcendentals=3 * tile_b * pair_lanes * sweeps,
-        ),
-    )(dt_arr, px, py, vx, vy, isp, m)
+        ox_ref[...] = x
+        oy_ref[...] = y
 
-    unpack = lambda a: a.reshape(bb, p_sub)[:b, :p]  # noqa: E731
-    new_pos = jnp.stack([unpack(ox), unpack(oy)], axis=-1)
-    new_vel = jnp.stack([unpack(ovx), unpack(ovy)], axis=-1)
+
+def _sweep(dt, x, y, vx, vy, isp, m, cfg, layout, stage, interpret):
+    """One ``pallas_call`` over the padded (B', P') planes."""
+    _, block_j, group = layout
+    rows, p2 = x.shape
+    kick, damp, drift = stage
+    spec = pl.BlockSpec((group, p2), lambda i: (i, 0))
+    kernel = functools.partial(
+        _force_kernel, cfg=cfg, block_j=block_j, kick=kick, damp=damp,
+        drift=drift,
+    )
+    return pl.pallas_call(
+        kernel,
+        grid=(rows // group,),
+        in_specs=[pl.no_block_spec] + [spec] * 6,
+        out_specs=[spec] * 4,
+        out_shape=[jax.ShapeDtypeStruct((rows, p2), jnp.float32)] * 4,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        name="force_integrate",
+    )(dt, x, y, vx, vy, isp, m)
+
+
+# (kick, damp, drift) per call: Euler is one sweep; leapfrog is
+# kick-drift with the half step, then kick with damping at the end
+# (core.forces._leapfrog_step).
+_STAGES = {
+    "euler": ((1.0, True, True),),
+    "leapfrog": ((0.5, False, True), (0.5, True, False)),
+}
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "interpret", "tile_elems"))
+def _force_step_batched(
+    pos, vel, ptype, alive, dt, cfg: SimConfig, interpret=False,
+    tile_elems=TILE_ELEMS,
+):
+    """Kernel over a batch: pos/vel (B, P, 2), ptype/alive (B, P)."""
+    b, p = ptype.shape
+    layout = block_layout(p, b, tile_elems)
+    p2, _, group = layout
+    pad_b = (-b) % group
+    pads = ((0, pad_b), (0, p2 - p))
+
+    def plane(a):
+        return jnp.pad(a.astype(jnp.float32), pads)
+
+    x, y = plane(pos[..., 0]), plane(pos[..., 1])
+    vx, vy = plane(vel[..., 0]), plane(vel[..., 1])
+    isp = plane(ptype == PROTON)
+    m = plane(alive)
+    dt = jnp.asarray(dt, jnp.float32)
+    for stage in _STAGES[cfg.integrator]:
+        x, y, vx, vy = _sweep(dt, x, y, vx, vy, isp, m, cfg, layout, stage,
+                              interpret)
+    new_pos = jnp.stack([x[:b, :p], y[:b, :p]], axis=-1)
+    new_vel = jnp.stack([vx[:b, :p], vy[:b, :p]], axis=-1)
     return new_pos, new_vel
 
 
@@ -496,9 +207,8 @@ def force_step_pallas(pos, vel, ptype, alive, dt, cfg: SimConfig, interpret=Fals
     """Drop-in replacement for :func:`pyqmd_tpu.core.forces.force_step`.
 
     Accepts unbatched (P, 2) state (adds a singleton batch) or batched
-    (B, P, 2) state. Call it batch-native for ensembles — vmapping the
-    unbatched form pads every nucleus to a full TILE_B tile (8x wasted
-    work; see ``ensemble_step``).
+    (B, P, 2) state. Call it batch-native for ensembles, so that small
+    nuclei share programs (see ``ensemble_step``).
     """
     if pos.ndim == 2:
         new_pos, new_vel = _force_step_batched(

@@ -1,7 +1,7 @@
 """Parallelism: device meshes, sharded ensembles, ring-sharded forces.
 
 The reference is single-process/single-device (SURVEY §2 "Parallelism &
-communication"); these modules are the capability-equivalent TPU scale-out:
+communication"); these modules are the capability-equivalent multi-device scale-out:
 P1 ensemble data parallelism, P3 psum'd statistics, P4 mesh/collective
 helpers, P5 particle-axis ring sharding.
 """

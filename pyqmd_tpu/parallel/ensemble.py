@@ -2,7 +2,7 @@
 
 The ensemble is a vmapped batch of independent nuclei; sharding it over the
 ``data`` mesh axis with ``shard_map`` gives each device its local shard of
-the O(N^2) work, and aggregate decay statistics are ``psum``'d over ICI so
+the O(N^2) work, and aggregate decay statistics are ``psum``'d across devices so
 the host reads O(1) numbers regardless of ensemble size. The reference has
 no equivalent — one nucleus per process (nuclear_sim.py:48, 92-93).
 
@@ -108,7 +108,7 @@ def make_sharded_decay_fn(
     :func:`pyqmd_tpu.core.step.decay_ensemble_step` — pure decay
     statistics (no forces/ejecta/overlap) over the ``data`` axis with
     psum'd aggregates. Isotope trajectories are bitwise identical to the
-    sharded full-physics frame, so pod-scale half-life measurements
+    sharded full-physics frame, so multi-device half-life measurements
     (N × 2M nuclei) cost O(B·P) per substep per chip."""
     return _make_sharded_step_fn(decay_ensemble_step, cfg, num_steps, mesh, axis)
 

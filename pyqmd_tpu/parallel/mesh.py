@@ -2,14 +2,14 @@
 
 The reference has no distributed backend at all — one process, one OpenCL
 device, host<->device copies every substep
-(/root/reference/nuclear_forces.py:202-234). The TPU-native comm layer is
-XLA collectives over ICI: build a `jax.sharding.Mesh`, annotate shardings,
-and let the compiler insert psum/all-gather/ppermute. This module is the
-small amount of glue that deserves a name.
+(/root/reference/nuclear_forces.py:202-234). Here the comm layer is XLA
+collectives (NCCL over NVLink on a GPU host): build a `jax.sharding.Mesh`,
+annotate shardings, and let the compiler insert psum/all-gather/ppermute.
+This module is the small amount of glue that deserves a name.
 
-Multi-host note: for pods spanning hosts, call ``jax.distributed.initialize``
-before ``make_mesh`` — the same code then lays the ``data`` axis across DCN
-and inner axes across ICI (mesh order puts the fastest-varying axis on ICI).
+Multi-host note: for clusters spanning hosts, call
+``jax.distributed.initialize`` before ``make_mesh`` — the same code then
+lays the ``data`` axis across hosts and inner axes within each host.
 """
 
 from __future__ import annotations
@@ -56,5 +56,5 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 def shard_ensemble(states, mesh: Mesh, axis: str = DATA_AXIS):
     """Place a batched ``NucleusState`` pytree with its batch axis split
-    over the mesh. XLA then keeps every frame-step collective on ICI."""
+    over the mesh. XLA then inserts every frame-step collective itself."""
     return jax.device_put(states, batch_sharding(mesh, axis))

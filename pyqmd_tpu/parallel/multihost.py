@@ -1,12 +1,12 @@
-"""Multi-host (pod / DCN) initialization.
+"""Multi-host initialization.
 
-The reference is one process on one device (SURVEY §2); the TPU-native
-scale-out across hosts needs exactly one extra step: initialize the JAX
-distributed runtime before building meshes, after which every sharded code
-path in this package (`make_sharded_frame_fn`, `shard_ensemble`, the
-ppermute ring) works unchanged — `jax.devices()` spans the pod, and the
-``data`` axis of :func:`pyqmd_tpu.parallel.mesh.make_mesh` lays across DCN
-between hosts and ICI within them.
+The reference is one process on one device (SURVEY §2); scale-out across
+hosts needs exactly one extra step: initialize the JAX distributed runtime
+before building meshes, after which every sharded code path in this
+package (`make_sharded_frame_fn`, `shard_ensemble`, the ppermute ring)
+works unchanged — `jax.devices()` spans every host's GPUs, and the
+``data`` axis of :func:`pyqmd_tpu.parallel.mesh.make_mesh` lays across the
+network between hosts and NVLink within them.
 
 Not exercisable in a single-host environment; the single-process path is a
 guarded no-op so the same launcher script runs everywhere.
@@ -22,14 +22,13 @@ import jax
 logger = logging.getLogger("pyqmd_tpu")
 
 # Environment signals of a multi-process cluster (jax.distributed
-# auto-detection sources: explicit JAX coordinator, TPU pod metadata, SLURM,
-# Open MPI). Checked WITHOUT touching any JAX backend — calling e.g.
+# auto-detection sources: explicit JAX coordinator, SLURM, Open MPI).
+# Checked WITHOUT touching any JAX backend — calling e.g.
 # jax.process_count() first would initialize the local backend and break a
 # subsequent jax.distributed.initialize().
 _COORDINATOR_ENV_VARS = (
     "JAX_COORDINATOR_ADDRESS",
     "COORDINATOR_ADDRESS",
-    "MEGASCALE_COORDINATOR_ADDRESS",
     "OMPI_MCA_orte_hnp_uri",
 )
 
@@ -37,28 +36,20 @@ _COORDINATOR_ENV_VARS = (
 def cluster_detected() -> bool:
     """True when cluster env vars indicate a multi-*process* launch.
 
-    Presence alone is not enough: single-worker TPU VMs export
-    ``TPU_WORKER_HOSTNAMES=localhost`` and SLURM single-node jobs export
-    ``SLURM_JOB_NUM_NODES=1`` — only multi-worker values count.
+    Presence alone is not enough: SLURM single-node jobs export
+    ``SLURM_JOB_NUM_NODES=1`` — only multi-node values count.
 
-    Detection is ENV-ONLY by design (querying the GCE metadata server or
-    any JAX API here would initialize a backend before
-    ``jax.distributed.initialize`` and break it). Cloud-TPU pod slices
-    whose launcher doesn't export these vars should pass explicit args to
-    :func:`initialize_multihost` (or call ``jax.distributed.initialize()``
-    first themselves, which self-detects via the TPU metadata server).
+    Detection is ENV-ONLY by design (any JAX API here would initialize a
+    backend before ``jax.distributed.initialize`` and break it). A launch
+    that exports none of these passes explicit ``coordinator_address``,
+    ``num_processes`` and ``process_id`` to :func:`initialize_multihost`.
     """
     if any(os.environ.get(v) for v in _COORDINATOR_ENV_VARS):
         return True
-    if "," in os.environ.get("TPU_WORKER_HOSTNAMES", ""):
-        return True  # comma-separated list => multiple TPU workers
-    for var in ("SLURM_JOB_NUM_NODES", "MEGASCALE_NUM_SLICES"):
-        try:
-            if int(os.environ.get(var, "1")) > 1:
-                return True
-        except ValueError:
-            pass
-    return False
+    try:
+        return int(os.environ.get("SLURM_JOB_NUM_NODES", "1")) > 1
+    except ValueError:
+        return False
 
 
 def initialize_multihost(

@@ -1,12 +1,12 @@
 """Animated-GIF writer (stdlib only: struct + numpy bit packing).
 
 The reference has no movie export at all (PyGame displays live,
-/root/reference/rendering.py:58); the headless TPU build already exports
+/root/reference/rendering.py:58); this headless build already exports
 PNG/APNG (`render/png.py`). GIF is the universally-viewable companion
 format: every browser, chat client and image viewer animates it without
 plugins, where APNG support is spottier.
 
-Encoder design (chosen for the TPU workflow, where frames arrive as
+Encoder design (chosen for a headless workflow, where frames arrive as
 uint8 numpy arrays read back from the device):
 
 - **Two LZW paths.** The *fast* path emits every pixel as a literal code
@@ -157,7 +157,7 @@ def _lzw_true(indices: np.ndarray, min_code_size: int) -> bytes:
     each (per-symbol run-code chains), and mixed-string dict work happens
     only at run boundaries. Rendered sim frames are mostly flat regions,
     so this is ~20-60x fewer Python-loop iterations; the bit packing is
-    one vectorized pass (:func:`_pack_codes`). (VERDICT r3 weak #7.)
+    one vectorized pass (:func:`_pack_codes`).
     """
     clear = 1 << min_code_size
     eoi = clear + 1

@@ -2,7 +2,7 @@
 
 The reference displays through an in-process PyGame window with keyboard
 controls (/root/reference/nuclear_sim.py:33-35, 381-521, 589-606). A
-headless TPU host has no window, so this module serves the same live
+headless accelerator host has no window, so this module serves the same live
 view over HTTP to any browser, stdlib-only:
 
 * ``/``        — control page: live <img> stream, status readout, and the
@@ -235,7 +235,7 @@ class LiveViewServer:
         sequence instead of each stepping the shared ``Simulation``
         (which would advance simulated time N times faster and split the
         frames between viewers). The budget gate keys on production
-        COMPLETION, so a slow frame (first-use compile, tunnel render)
+        COMPLETION, so a slow frame (first-use compile, slow render)
         never triggers catch-up stepping and slow production cannot be
         multiplied by viewer count; the steady-state frame period is
         budget + production time. PNG encoding happens OUTSIDE the lock —

@@ -9,7 +9,7 @@ scroll window math, per-step ``X-A → Y-B (sym)`` lines and durations).
 
 Panel text changes at most once per frame, so the overlay is composed on
 host with the 5x7 bitmap font and burned over the device-rendered frame as
-one vectorized masked write — the TPU-idiomatic split: particles/ruler
+one vectorized masked write — the accelerator-idiomatic split: particles/ruler
 rasterize on device, text overlays on host.
 """
 
@@ -152,8 +152,9 @@ def draw_info_panel(
     lh = canvas.line_height
     x, y = 5 * canvas.scale, 5 * canvas.scale - max(0, scroll) * lh
     backend = status.get("backend", "jnp")
+    platform = status.get("platform", "cpu")
     y = canvas.text(
-        x, y, f"Acceleration: TPU ({backend.upper()})", ACCEL_ON
+        x, y, f"Acceleration: {platform.upper()} ({backend.upper()})", ACCEL_ON
     )
     if "zoom" in status:
         y = canvas.text(x, y, f"Zoom: {status['zoom']:.1f}x", ZOOM_COLOR)

@@ -1,7 +1,7 @@
 """Minimal PNG/ APNG writers (stdlib only: zlib + struct).
 
 The reference displays via PyGame (/root/reference/rendering.py:58); the
-headless TPU build exports frames instead. No imaging dependency needed for
+headless build exports frames instead. No imaging dependency needed for
 8-bit RGB.
 """
 

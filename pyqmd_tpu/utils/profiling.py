@@ -2,9 +2,9 @@
 
 The reference's observability is an FPS deque and an on-screen substep meter
 (/root/reference/nuclear_sim.py:60, 119-121; rendering.py:224-229) with no
-timers around the kernel. The TPU-native equivalents: a wall-clock
+timers around the kernel. The equivalents here: a wall-clock
 steps/sec counter with correct device fencing (``block_until_ready``), and
-a ``jax.profiler`` trace context for capturing XLA/TPU timelines viewable
+a ``jax.profiler`` trace context for capturing XLA/GPU timelines viewable
 in TensorBoard/Perfetto.
 """
 
@@ -71,5 +71,5 @@ def trace(log_dir: str):
 
 
 def annotate(name: str):
-    """Named region inside a trace (shows up on the TPU timeline)."""
+    """Named region inside a trace (shows up on the device timeline)."""
     return jax.profiler.TraceAnnotation(name)

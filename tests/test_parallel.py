@@ -140,15 +140,11 @@ def test_cluster_detection_env_gated(monkeypatch):
     from pyqmd_tpu.parallel.multihost import cluster_detected
 
     for v in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
-              "MEGASCALE_COORDINATOR_ADDRESS", "OMPI_MCA_orte_hnp_uri",
-              "TPU_WORKER_HOSTNAMES", "SLURM_JOB_NUM_NODES"):
+              "OMPI_MCA_orte_hnp_uri", "SLURM_JOB_NUM_NODES"):
         monkeypatch.delenv(v, raising=False)
     assert cluster_detected() is False
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "localhost")
-    assert cluster_detected() is False  # single worker (this image)
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-0,host-1")
-    assert cluster_detected() is True
-    monkeypatch.delenv("TPU_WORKER_HOSTNAMES")
+    monkeypatch.setenv("SLURM_JOB_NUM_NODES", "bogus")
+    assert cluster_detected() is False  # unparsable counts as one node
     monkeypatch.setenv("SLURM_JOB_NUM_NODES", "1")
     assert cluster_detected() is False
     monkeypatch.setenv("SLURM_JOB_NUM_NODES", "4")

@@ -220,7 +220,7 @@ def test_compose_panels_info_content():
     assert rgb.shape == (600, 800, 3) and mask.shape == (600, 800)
     x, lh = 10, 18  # scale=2 layout
     lines = {
-        0: ("Acceleration: TPU (JNP)", (100, 255, 100)),
+        0: ("Acceleration: CPU (JNP)", (100, 255, 100)),
         1: ("Zoom: 15.0x", (200, 200, 255)),
         2: ("Element: Uranium (U)", (255, 255, 255)),
         3: ("Isotope: U-238", (255, 255, 255)),

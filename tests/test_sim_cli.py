@@ -114,7 +114,7 @@ def test_simulation_status_fields():
     sim = Simulation(z=6, n=8, pad_to=8)
     s = sim.status()
     for k in ("isotope", "z", "n", "half_life", "alive", "decay_counts",
-              "time_passed", "time_scale", "backend", "fps",
+              "time_passed", "time_scale", "backend", "platform", "fps",
               "substeps_per_sec", "rms_radius", "kinetic_energy"):
         assert k in s
     assert s["alive"] == 14
@@ -426,11 +426,10 @@ def test_cli_config_overrides(capsys):
     from pyqmd_tpu.cli import parse_overrides
 
     ov = parse_overrides([
-        "strong_strength=120", "fast_math=false", "integrator=leapfrog",
-        "max_substeps=10",
+        "strong_strength=120", "integrator=leapfrog", "max_substeps=10",
     ])
     assert ov == {
-        "strong_strength": 120.0, "fast_math": False,
+        "strong_strength": 120.0,
         "integrator": "leapfrog", "max_substeps": 10,
     }
     with pytest.raises(ValueError):
